@@ -1,6 +1,6 @@
 // Native host-side runtime for deflate_rs_tpu.
 //
-// The TPU owns the compute path (LZ77/Huffman/bit packing as JAX/Pallas);
+// The device owns the compute path (LZ77/Huffman/bit packing as JAX);
 // this library covers the host-side serial tail, the role the reference's
 // Rust fills outside the compressor core:
 //   * ordered assembly of per-chunk bitstreams into one output buffer

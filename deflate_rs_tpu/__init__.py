@@ -1,10 +1,10 @@
-"""deflate_rs_tpu — a TPU-native DEFLATE/zlib/gzip encoder built on JAX/XLA/Pallas.
+"""deflate_rs_tpu — a DEFLATE/zlib/gzip encoder built on JAX/XLA.
 
 A from-scratch reimagining of the capabilities of ``image-rs/deflate-rs``
 (see SURVEY.md): stored/fixed/dynamic blocks, greedy/lazy/RLE LZ77 matching,
 per-block dynamic Huffman construction with exact block-type cost selection,
 streaming write/flush/finish semantics, and combinable Adler-32/CRC-32 —
-reformulated as data-parallel TPU pipelines over independent 64 KiB chunks.
+reformulated as data-parallel device pipelines over independent 64 KiB chunks.
 
 Public API mirrors the reference's crate root (lib.rs:98-99, 137-286).
 """
@@ -42,7 +42,7 @@ __all__ = [
     # Decode surface — beyond the reference (it delegates decoding to
     # miniz_oxide in tests and ships none): a spec-complete host inflate
     # for all three framings.  The batched on-device decoder lives in
-    # ops/inflate_device.py for TPU-side validation pipelines.
+    # ops/inflate_device.py for on-device validation pipelines.
     "inflate",
     "inflate_zlib",
     "inflate_gzip",

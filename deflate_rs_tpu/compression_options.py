@@ -6,14 +6,13 @@ preset values, so levels are directly comparable.
 
 The vectorized matcher interprets ``max_hash_checks`` as the number of hash
 bucket candidates probed per position (the first K links of the equivalent
-hash chain), capped at a TPU-friendly static width.
+hash chain), capped at a static width.
 """
 
 from __future__ import annotations
 
 import enum
-import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 HIGH_MAX_HASH_CHECKS = 1768
 HIGH_LAZY_IF_LESS_THAN = 128
@@ -25,20 +24,6 @@ DEFAULT_LAZY_IF_LESS_THAN = 32
 # are rarely profitable and cost K-proportional probe bandwidth.  Measured on
 # pg11: K=128 (default preset) already beats zlib -6, K=256 beats zlib -9.
 KERNEL_MAX_CANDIDATES = 256
-
-
-def _gate_on_unless_0(name: str):
-    """Kernel-gate default: on unless the env var is "0" (read ONCE, at
-    options construction — never inside traced code, so two processes with
-    different env vars hold *different options objects* with different
-    cache keys instead of silently tracing different programs for "the
-    same" options; VERDICT r4 item 8)."""
-    return lambda: "off" if os.environ.get(name, "1") == "0" else "on"
-
-
-def _gate_off_unless_1(name: str):
-    """Kernel-gate default: off unless the env var is "1" (see above)."""
-    return lambda: "on" if os.environ.get(name, "0") == "1" else "off"
 
 
 class MatchingType(enum.Enum):
@@ -102,10 +87,8 @@ class CompressionOptions:
     # Long-range recovery pass (ops/longrange.py): recovers full-length
     # matches on highly redundant inputs where probe-capped tie-breaking
     # starves the extensions.  "auto": on for every chain-budget preset
-    # except the fast family — the round-4 Mosaic measurement kernel
-    # (ops/lr_kernel.py) brought the pass to ~1 ms/chunk at the default
-    # budget, which is what makes Default <= zlib-6 on every in-image
-    # corpus (tests/test_corpora_ratio.py).  Internal knob.
+    # except the fast family; it is what makes Default <= zlib-6 on every
+    # in-image corpus (tests/test_corpora_ratio.py).  Internal knob.
     long_range: str = "auto"
     # Probe window width override in 4-byte words (0 = per-preset default,
     # see probe_words).  Internal knob for tuning sweeps.
@@ -146,21 +129,6 @@ class CompressionOptions:
     # deeper tie-group candidates with exact LCP.  "auto" resolves per
     # preset; "off" disables; or a comma list like "4,5,6,7".  Internal.
     sa_tail: str = "auto"
-    # Mosaic-kernel gates ("on"/"off"), resolved from the DEFLATE_TPU_*
-    # env vars ONCE at options construction (VERDICT r4 item 8: no
-    # os.environ reads inside encode_chunk; the gates are part of
-    # cache_key so differently-gated options never share a trace).  The
-    # kernels are bit-identical to the XLA stages they replace (tests/
-    # test_{longrange,hist_kernel,field_kernel}.py); the gates exist to
-    # keep the A/B measurement record runnable (scripts/probes/
-    # kernel_ab.py).  Defaults ship the measured composite winners:
-    # lr/field ON, hist OFF (docs/perf_notes.md round 4).
-    lr_kernel: str = field(
-        default_factory=_gate_on_unless_0("DEFLATE_TPU_LR_KERNEL"))
-    hist_kernel: str = field(
-        default_factory=_gate_off_unless_1("DEFLATE_TPU_HIST_KERNEL"))
-    field_kernel: str = field(
-        default_factory=_gate_on_unless_0("DEFLATE_TPU_FIELD_KERNEL"))
 
     @staticmethod
     def default() -> "CompressionOptions":
@@ -193,11 +161,10 @@ class CompressionOptions:
     def turbo() -> "CompressionOptions":
         """Maximum-throughput tier (beyond the reference's surface): one
         dynamic-Huffman block per chunk, entropy-proxy scored, no match
-        search.  The demonstrated single-chip architecture ceiling —
-        0.359 ms per 64 KiB chunk = 0.183 GB/s on v5e (scripts/probes/
-        ceiling_tier.py, round 5) vs huffman_only's 0.555 (exact scoring,
-        nq=4).  Same legal-DEFLATE output class as huffman_only; ~2.6x
-        the ratio of Default on text (entropy-only).  Use when the input
+        search: the fewest stages of any preset (huffman_only scores
+        splits exactly over nq=4 quarters).  Same
+        legal-DEFLATE output class as huffman_only; ~2.6x the ratio of
+        Default on text (entropy-only).  Use when the input
         is nearly incompressible or the pipeline is throughput-bound."""
         return CompressionOptions(
             max_hash_checks=0, lazy_if_less_than=0,
@@ -311,8 +278,8 @@ class CompressionOptions:
         exact because its contract is squeezing the last ~0.1% of ratio;
         huffman_only/rle get it because their all-literal histograms make
         the entropy proxy noticeably lossier (60 B on pg11) and they are
-        not throughput presets.  fast/default use the proxy, which costs
-        ~0.25 ms/chunk less on TPU for a few-bytes-per-chunk difference.
+        not throughput presets.  fast/default use the proxy, which skips
+        the package-merge over every range for a few bytes per chunk.
 
         The throughput presets are identified DIRECTLY (an sa-matcher
         "hash" mode) rather than through tuning thresholds, and the
@@ -349,11 +316,10 @@ class CompressionOptions:
         Chain-budget presets split at 8 KiB seams (nq=8, 128 compositions) —
         the round-4 granularity step toward the reference re-tabling every
         <= 31744 tokens at content boundaries (output_writer.rs:19,
-        compress.rs:186-247).  Measured vs nq=4 (scripts/probes/nq_sweep.py,
-        nq_timing.py): -400..-660 B on ELF corpora, -5,043 B (5.2%) on 8 KiB
-        text/binary alternation (where nq=4 default LOSES to zlib-6), +60 B
-        on pg11; device +0.08 ms/chunk at default, +0.47 at high (exact
-        scoring pays R=36 ranges vs 10).  nq=16 measured <0.4% further gain
+        compress.rs:186-247).  Measured vs nq=4: -400..-660 B on ELF
+        corpora, -5,043 B (5.2%) on 8 KiB text/binary alternation (where
+        nq=4 default LOSES to zlib-6), +60 B on pg11; exact scoring then
+        pays R=36 ranges instead of 10.  nq=16 measured <0.4% further gain
         for another doubling of the machinery — not taken.  rle/huffman_only
         keep nq=4 (no matcher; their split value is content-shift entropy
         only).
@@ -407,8 +373,7 @@ class CompressionOptions:
         (sa): M=32 held the 128 KiB contract but broke it at larger caps
         (tar_tree@512K 1.0010, doc_text@1M 1.0004 — found by the round-5
         margin table); M=48 closes both AND widens the 128 KiB margins
-        (json 0.9879 -> 0.9604, sqlite -> 0.9870) at +0.015 ms/chunk on
-        text (density-gated kernel; dense json pays +0.35, ~15%)."""
+        (json 0.9879 -> 0.9604, sqlite -> 0.9870)."""
         if self.num_dom:
             return self.num_dom
         return 48
@@ -422,9 +387,9 @@ class CompressionOptions:
         the r4 default contract at 1.0017 of zlib-6; S=64 + harvest stride
         1 with run-based dominant selection closes it (0.9994) and
         improves every other corpus (json_cfg 0.9883 -> 0.9950 under the
-        cheaper run selection, sqlite_db -> 0.9872; docs/perf_notes.md
-        round 5).  Shorter segments are also what keeps longest-run
-        ranking faithful to frequency ranking (runs interleave less).
+        cheaper run selection, sqlite_db -> 0.9872).  Shorter segments are
+        also what keeps longest-run ranking faithful to frequency ranking
+        (runs interleave less).
         high (hash matcher): 32 — its sweep saturated there (r4)."""
         if self.dom_segs:
             return self.dom_segs
@@ -493,5 +458,4 @@ class CompressionOptions:
              self.resolved_lr_sel, self.resolved_lr_pair)
             if self.use_long_range else (0, 0, 0, 0, 0, "", False),
             self.resolved_sa_tail,
-            (self.lr_kernel, self.hist_kernel, self.field_kernel),
         )

@@ -73,8 +73,13 @@ class _Decoder:
         raise ValueError("invalid Huffman code in stream")
 
 
-def inflate(data: bytes) -> bytes:
-    """Decode a raw DEFLATE stream."""
+def inflate(data: bytes, tokens: list | None = None) -> bytes:
+    """Decode a raw DEFLATE stream.
+
+    ``tokens``, if given, receives the stream's tokens in order:
+    ``("lit", byte)`` for each literal and each stored byte,
+    ``("m", length, distance)`` for each match.
+    """
     br = BitReader(data)
     out = bytearray()
     while True:
@@ -88,6 +93,8 @@ def inflate(data: bytes) -> bytes:
                 raise ValueError("stored block LEN/NLEN mismatch")
             start = br.bitpos >> 3
             out += br.data[start : start + ln]
+            if tokens is not None:
+                tokens.extend(("lit", b) for b in br.data[start : start + ln])
             br.bitpos += 8 * ln
         elif btype in (C.BTYPE_FIXED, C.BTYPE_DYNAMIC):
             if btype == C.BTYPE_FIXED:
@@ -122,6 +129,8 @@ def inflate(data: bytes) -> bytes:
                 sym = lit_dec.decode(br)
                 if sym < 256:
                     out.append(sym)
+                    if tokens is not None:
+                        tokens.append(("lit", sym))
                 elif sym == 256:
                     break
                 else:
@@ -135,6 +144,8 @@ def inflate(data: bytes) -> bytes:
                     dist = int(C.DIST_BASE[dsym]) + br.read(int(C.DIST_EXTRA_BITS[dsym]))
                     if dist > len(out):
                         raise ValueError("distance beyond output")
+                    if tokens is not None:
+                        tokens.append(("m", length, dist))
                     for _ in range(length):
                         out.append(out[-dist])
         else:

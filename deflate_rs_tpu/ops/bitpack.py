@@ -2,8 +2,8 @@
 
 Replaces the reference's sequential ``LsbWriter::write_bits`` accumulator loop
 (bitstream.rs:76-86, the second-hottest loop) with a data-parallel scheme
-built only from a cumsum, one stable sort, and elementwise ops (TPU
-gathers/scatters are scalar-bound, ~10 ns/element — docs/perf_notes.md):
+built only from a cumsum, one sort, and elementwise ops (no gathers or
+scatters, which were scalar-bound on the encoder's first target device):
 
 1. every emitted quantity becomes a (value, nbits) *field*;
 2. an exclusive prefix-sum over ``nbits`` yields each field's absolute bit
@@ -93,8 +93,8 @@ def pack_fields(values, nbits, num_words: int):
     # Compact boundaries with an UNSTABLE single-key sort: every word up to
     # the last contains a field start, so boundary word indices are both
     # unique and gap-free — the boundary for word w sorts exactly to rank w.
-    # (A stable sort costs like one extra key on TPU: XLA adds an internal
-    # iota tiebreak; unique keys need no tiebreak.)  Non-boundary rows share
+    # (A stable sort makes XLA add an internal iota tiebreak key; unique
+    # keys need no tiebreak.)  Non-boundary rows share
     # key ``num_words`` and land past every real word, where the
     # total_bits mask below zeroes them.
     key = jnp.where(boundary, word, jnp.int32(num_words))

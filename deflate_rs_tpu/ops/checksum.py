@@ -3,11 +3,11 @@
 The reference updates both checksums serially over the whole input
 (checksum.rs:33-57 for Adler-32 via the ``adler32`` crate; CRC-32 via the
 ``gzip_header::Crc`` type, writer.rs:410-426).  Serial byte loops do not map to
-a TPU, so both are reformulated as parallel reductions:
+a data-parallel device, so both are reformulated as parallel reductions:
 
 * **Adler-32** is two modular sums: ``s1 = Σ b_i`` and ``s2 = Σ (n-i)·b_i``.
   Both are data-parallel; products are range-split so everything fits in
-  int32 lanes (TPUs have no native int64).
+  int32 lanes (JAX runs with 64-bit integers disabled by default).
 
 * **CRC-32** is linear over GF(2): the CRC register after processing a message
   with a zero initial register ("raw CRC") satisfies
@@ -142,8 +142,9 @@ def crc32_raw_device(data, n):
     # Front-pad: leading zero bytes are the identity for a zero-init register,
     # so roll the valid bytes to the end of the buffer.
     rolled = jnp.roll(masked, P - n)
-    # Byte->CRC table lookup as two one-hot MXU matmuls (16-bit halves stay
-    # exact in float32); ~7x faster than a gather on TPU.
+    # Byte->CRC table lookup as two one-hot matmuls (16-bit halves stay
+    # exact in float32; chosen where it beat a gather, not yet measured
+    # against one on the GPU).
     from .symbolmap import table_lookup
 
     ridx = rolled.astype(jnp.int32)

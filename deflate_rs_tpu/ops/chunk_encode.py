@@ -1,6 +1,6 @@
 """The per-chunk DEFLATE encoder: one fused, jittable pipeline.
 
-This is the TPU-native counterpart of the reference's driver loop
+This is the data-parallel counterpart of the reference's driver loop
 (``compress_data_dynamic_n``, compress.rs:80) — but where the reference
 processes a sliding window byte-by-byte, this encodes one independent chunk
 (up to ``emit_size`` bytes, preceded by up to 32 KiB of history halo) as a
@@ -15,7 +15,7 @@ build plan (SURVEY.md §2) calls for.
 Pipeline stages (all fixed-shape, no data-dependent Python control flow;
 tokens live in POSITION space end to end — no compaction, no gathers):
   hash -> payload sort -> K-probe -> chain extension -> lazy jump steps
-  -> lock-step segmented parse (Pallas, parse_scan.py) -> per-position
+  -> pointer-doubling parse (parse.py) -> per-position
   symbol fields -> one-hot histograms -> package-merge code lengths
   -> header RLE -> exact cost decision -> field list -> sort-compaction
   bit pack (bitpack.py), plus Adler-32/CRC-32 partials over the payload.
@@ -38,8 +38,7 @@ from .code_lengths import CL_CAP, encode_code_lengths
 from .matching import find_matches, find_matches_hash, find_rle_matches
 from .symbolmap import dist_code, histogram_onehot, length_code, table_lookup
 from .package_merge import package_merge_rows
-from .parse import build_jumps, reachable
-from .parse_scan import parse_scan
+from .parse import build_jumps, token_starts
 
 HALO = C.WINDOW_SIZE  # history bytes preceding the emit region
 PAD = 72  # tail padding so packed-word probe reads (up to 64 B probes) stay in bounds
@@ -141,10 +140,47 @@ def _split_cfg(nq: int) -> _SplitCfg:
     return _SplitCfg(nq)
 
 
-# Default-config aliases (timing/debug scripts import these) — derived from
-# the default preset so they cannot drift from what production runs.
-NQ = CompressionOptions.default().num_quarters
-RANGES = _split_cfg(NQ).ranges
+def hash_matches(buf, N: int, n_total, hstart, options: CompressionOptions):
+    """The main matcher's per-position (best_len, best_dist) for the
+    chain-budget presets (matcher_mode "hash"), before long-range recovery."""
+    if options.matcher_algo == "sa":
+        return find_matches(
+            buf, N, n_total, hstart, options.num_candidates,
+            probe_words=options.probe_words, nkey=options.resolved_sort_nkey,
+            tail_jumps=options.resolved_sa_tail,
+        )
+    return find_matches_hash(
+        buf, N, n_total, hstart, options.num_candidates,
+        probe_words=options.probe_words,
+    )
+
+
+def dominant_lengths(buf, N: int, n_total, hstart, d_cand, options: CompressionOptions):
+    """One round of the long-range pass (ops/longrange.py) at the options'
+    budget: exact lengths at the dominant harvested distances."""
+    from .longrange import global_dominant_lengths, local_dominant_lengths
+
+    kw = dict(
+        num_dom=options.resolved_num_dom, num_seg=options.resolved_dom_segs,
+        harvest_stride=options.resolved_lr_stride, sel=options.resolved_lr_sel,
+        pair=options.resolved_lr_pair,
+    )
+    if options.lr_global:
+        return global_dominant_lengths(
+            buf, N, n_total, hstart, d_cand, num_global=options.lr_global, **kw
+        )
+    return local_dominant_lengths(buf, N, n_total, hstart, d_cand, **kw)
+
+
+def jump_steps(best_len, best_dist, options: CompressionOptions):
+    """Jump steps over the emit region: 1 for a literal, match length for a
+    taken match (greedy/lazy resolved elementwise in build_jumps)."""
+    return build_jumps(
+        best_len[HALO:],
+        best_dist[HALO:],
+        lazy=options.lazy,
+        lazy_if_less_than=min(options.lazy_if_less_than, 258) if options.lazy else 0,
+    )
 
 
 def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: CompressionOptions,
@@ -161,7 +197,7 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
       with_checksums: compute Adler-32/CRC-32 partials on device.  The
         sharded pipeline wants them (host may never touch payload bytes);
         host-driven paths skip them and use the native C checksums instead
-        (runtime/native.py) — the device CRC tree is ~30% of encode time.
+        (runtime/native.py), since the host holds the bytes anyway.
       stored_payload_fields: emit the stored sub-block fields into the
         packed words.  The COMPACTED consumers (corpus flat mode, sharded
         compact mode) never read a stored chunk's device words (used = 0;
@@ -190,17 +226,7 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
     # ------------------------------------------------------------------ LZ77
     mode = options.matcher_mode
     if mode == "hash":
-        if options.matcher_algo == "sa":
-            best_len, best_dist = find_matches(
-                buf, N, n_total, hstart, options.num_candidates,
-                probe_words=options.probe_words, nkey=options.resolved_sort_nkey,
-                tail_jumps=options.resolved_sa_tail,
-            )
-        else:
-            best_len, best_dist = find_matches_hash(
-                buf, N, n_total, hstart, options.num_candidates,
-                probe_words=options.probe_words,
-            )
+        best_len, best_dist = hash_matches(buf, N, n_total, hstart, options)
         if options.use_long_range:
             # Long-range recovery (ops/longrange.py): positions whose claim
             # hit the probe cap contribute their distance; per-segment
@@ -210,51 +236,13 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
             # anchor matcher fed this too — measured to add nothing once
             # the harvest came from the main matcher's capped claims, and
             # deleted.)
-            from .longrange import (
-                global_dominant_lengths, local_dominant_lengths,
-                local_dominant_lengths_tpu,
-            )
             from .matching import chain_extend, stride_extend
 
-            # The TPU measurement kernel requires 128-word-aligned segments.
-            use_lr_kernel = (
-                jax.default_backend() == "tpu"
-                and not options.lr_global
-                and N % (4 * 128 * options.resolved_dom_segs) == 0
-                and options.lr_kernel == "on"
-            )
             cap = 4 * options.probe_words
             d_cand = jnp.where(best_len >= cap, best_dist, 0)
             lim_n = jnp.clip(n_total - jnp.arange(N, dtype=jnp.int32), 0, C.MAX_MATCH)
             for _ in range(options.resolved_dom_iters):
-                if use_lr_kernel:
-                    g_len, g_dist = local_dominant_lengths_tpu(
-                        buf, N, n_total, hstart, d_cand,
-                        num_dom=options.resolved_num_dom,
-                        num_seg=options.resolved_dom_segs,
-                        harvest_stride=options.resolved_lr_stride,
-                        sel=options.resolved_lr_sel,
-                        pair=options.resolved_lr_pair,
-                    )
-                elif options.lr_global:
-                    g_len, g_dist = global_dominant_lengths(
-                        buf, N, n_total, hstart, d_cand,
-                        num_dom=options.resolved_num_dom,
-                        num_seg=options.resolved_dom_segs,
-                        num_global=options.lr_global,
-                        harvest_stride=options.resolved_lr_stride,
-                        sel=options.resolved_lr_sel,
-                        pair=options.resolved_lr_pair,
-                    )
-                else:
-                    g_len, g_dist = local_dominant_lengths(
-                        buf, N, n_total, hstart, d_cand,
-                        num_dom=options.resolved_num_dom,
-                        num_seg=options.resolved_dom_segs,
-                        harvest_stride=options.resolved_lr_stride,
-                        sel=options.resolved_lr_sel,
-                        pair=options.resolved_lr_pair,
-                    )
+                g_len, g_dist = dominant_lengths(buf, N, n_total, hstart, d_cand, options)
                 take = g_len > best_len
                 best_len = jnp.where(take, g_len, best_len)
                 best_dist = jnp.where(take, g_dist, best_dist)
@@ -278,22 +266,8 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
     # ------------------------------------------------------ parse resolution
     # Tokens stay in POSITION space end to end (no compaction): the parse
     # yields a boolean token-start mask; every downstream stage masks by it.
-    # Jump steps over the emit region: 1 for a literal, match length for a
-    # taken match (greedy/lazy resolved elementwise in build_jumps).
-    steps = build_jumps(
-        best_len[HALO:],
-        best_dist[HALO:],
-        lazy=options.lazy,
-        lazy_if_less_than=min(options.lazy_if_less_than, 258) if options.lazy else 0,
-    )
-    if jax.default_backend() == "tpu":
-        # Lock-step segmented parse kernel (parse_scan.py): 128 segments in
-        # parallel on the VPU + short convergence fix-up — exact parse.
-        is_tok = parse_scan(steps, n)
-    else:
-        nxt_e = jnp.minimum(jnp.arange(E, dtype=jnp.int32) + steps, E)
-        reach = reachable(jnp.concatenate([nxt_e, jnp.full(1, E, jnp.int32)]), 0)
-        is_tok = reach[:E] & (jnp.arange(E) < n)
+    steps = jump_steps(best_len, best_dist, options)
+    is_tok = token_starts(steps, n)
     count = jnp.sum(is_tok.astype(jnp.int32))
     tvalid = is_tok
 
@@ -316,42 +290,17 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
 
     # Per-quarter histograms over STATIC position slices (same total one-hot
     # work as one whole-chunk histogram), then prefix sums give every quarter
-    # range its histogram.  Each range gets its own EOB.  The fused Pallas
-    # histogram kernel (hist_kernel.py) was built for this stage and measured
-    # a small composite LOSS (+0.02-0.04 ms/chunk at default/fast — the XLA
-    # one-hot hides under the matcher; scripts/probes/kernel_ab.py), so it is
-    # OFF unless explicitly enabled; kept tested as the measured record.
-    # Mosaic TPU block shapes must tile (8, 128): the per-quarter row count
-    # E/(128*nq) must itself divide by 8 (or nq == 1, where the block IS the
-    # whole array).  E=4096/nq=8 (the small-emit tier) violates it — caught
-    # by the on-TPU sweep (scripts/tpu_validate.py); the XLA path serves
-    # those shapes.
-    def _quarter_tiles_ok():
-        rq = E // (128 * sc.nq)
-        return E % (128 * sc.nq) == 0 and (sc.nq == 1 or rq % 8 == 0)
-
-    use_hist_kernel = (
-        jax.default_backend() == "tpu"
-        and _quarter_tiles_ok()
-        and options.hist_kernel == "on"
-    )
-    if use_hist_kernel:
-        from .hist_kernel import quarter_histograms
-
-        lsym_eff = jnp.where(tvalid, lsym, 999)
-        dcode_eff = jnp.where(tvalid & is_match, dcode, 99)
-        lf_q, df_q = quarter_histograms(lsym_eff, dcode_eff, sc.nq)
-    else:
-        lf_q = jnp.stack([
-            histogram_onehot(lsym[q * QL : (q + 1) * QL], tvalid[q * QL : (q + 1) * QL], C.NUM_USED_LITLEN)
-            for q in range(sc.nq)
-        ])
-        df_q = jnp.stack([
-            histogram_onehot(
-                dcode[q * QL : (q + 1) * QL], (tvalid & is_match)[q * QL : (q + 1) * QL], C.NUM_DIST_SYMBOLS
-            )
-            for q in range(sc.nq)
-        ])
+    # range its histogram.  Each range gets its own EOB.
+    lf_q = jnp.stack([
+        histogram_onehot(lsym[q * QL : (q + 1) * QL], tvalid[q * QL : (q + 1) * QL], C.NUM_USED_LITLEN)
+        for q in range(sc.nq)
+    ])
+    df_q = jnp.stack([
+        histogram_onehot(
+            dcode[q * QL : (q + 1) * QL], (tvalid & is_match)[q * QL : (q + 1) * QL], C.NUM_DIST_SYMBOLS
+        )
+        for q in range(sc.nq)
+    ])
     lf_cum = jnp.concatenate([jnp.zeros((1, C.NUM_USED_LITLEN), jnp.int32), jnp.cumsum(lf_q, axis=0)])
     df_cum = jnp.concatenate([jnp.zeros((1, C.NUM_DIST_SYMBOLS), jnp.int32), jnp.cumsum(df_q, axis=0)])
     l_freq_r = jnp.stack([lf_cum[j] - lf_cum[i] for (i, j) in sc.ranges])  # [R, 286]
@@ -361,7 +310,7 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
     # ------------------- composition scoring (entropy proxy, exact fixed)
     # The round-1 encoder ran exact package-merge + header RLE for ALL 10
     # contiguous quarter ranges just to score the 8 compositions — the
-    # 15-level package-merge chain was the single largest device cost.
+    # 15-level package-merge chain was the largest cost of that design.
     # Compositions are now scored with a Shannon-entropy proxy for the
     # dynamic cost (optimal length-limited codes track ceil(-log2 p) very
     # closely) plus the EXACT fixed cost; exact tables and bit costs are
@@ -515,8 +464,7 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
 
         # One batched package-merge for BOTH alphabets: the dist histograms
         # ride padded to the litlen width (zero-frequency symbols are inert
-        # in package-merge), halving the 15-level small-op chain — which is
-        # dispatch-bound, not FLOP-bound, on this device.
+        # in package-merge), so one 15-level chain serves both.
         d_freq_pad = jnp.concatenate(
             [d_freq_s, jnp.zeros((NS, C.NUM_USED_LITLEN - C.NUM_DIST_SYMBOLS), jnp.int32)],
             axis=1,
@@ -648,32 +596,6 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
 
     bfinal = jnp.asarray(is_last).astype(jnp.int32)
 
-    # Fused token-field kernel (field_kernel.py): all four per-position
-    # field arrays in one Mosaic program, tables resolved VMEM-resident —
-    # the XLA path streams an E x 288 f32 one-hot per lookup through HBM.
-    # Measured composite win (-0.02 default / -0.03 fast ms/chunk,
-    # scripts/probes/kernel_ab.py).  Bit-identical where field widths are
-    # nonzero (the only bits that reach the stream); tests/test_field_kernel.py.
-    use_field_kernel = (
-        jax.default_backend() == "tpu"
-        and _quarter_tiles_ok()
-        and options.field_kernel == "on"
-    )
-    if use_field_kernel:
-        from .field_kernel import token_fields
-
-        l_pack_q4 = jnp.stack([l_pack_s[sid_q[q]] for q in range(sc.nq)])
-        d_pack_q4 = jnp.stack([d_pack_s[sid_q[q]] for q in range(sc.nq)])
-        lsym_k = lsym_eff if use_hist_kernel else jnp.where(tvalid, lsym, 999)
-        dcode_k = (
-            dcode_eff if use_hist_kernel
-            else jnp.where(tvalid & is_match, dcode, 99)
-        )
-        kt1v, kt1b, kt2v, kt2b = token_fields(
-            huff.astype(jnp.int32), lsym_k, len_extra_n, len_extra_v,
-            dcode_k, dist_extra_n, dist_extra_v, l_pack_q4, d_pack_q4,
-        )
-
     seg_v, seg_b = [], []
     for q in range(sc.nq):
         r = sid_q[q]
@@ -706,27 +628,20 @@ def encode_chunk(buf, hist_len, n, is_last, *, emit_size: int, options: Compress
         rle_b = jnp.stack([rle_code_b, rle_ex_b], axis=1).reshape(-1)
 
         # Token fields for this quarter's static position slice, coded with
-        # the owning block's tables.  TPU: slices of the fused-kernel field
-        # arrays; CPU: packed code|len<<16 one-hot MXU lookups per side.
+        # the owning block's tables: packed code|len<<16 lookups per side.
         sl = slice(q * QL, (q + 1) * QL)
-        if use_field_kernel:
-            t1v = kt1v[sl].astype(jnp.uint32)
-            t1b = kt1b[sl]
-            t2v = kt2v[sl].astype(jnp.uint32)
-            t2b = kt2b[sl]
-        else:
-            tok_on = tvalid[sl] & huff
-            l_pack = table_lookup(l_pack_s[r], lsym[sl], C.NUM_LITLEN_SYMBOLS)
-            lsym_code = (l_pack & 0xFFFF).astype(jnp.uint32)
-            lsym_len = l_pack >> 16
-            t1v = lsym_code | (len_extra_v[sl].astype(jnp.uint32) << lsym_len.astype(jnp.uint32))
-            t1b = jnp.where(tok_on, lsym_len + len_extra_n[sl], 0)
-            mt = tok_on & is_match[sl]
-            d_pack = table_lookup(d_pack_s[r], dcode[sl], C.NUM_DIST_SYMBOLS)
-            d_code_v = (d_pack & 0xFFFF).astype(jnp.uint32)
-            d_code_l = d_pack >> 16
-            t2v = d_code_v | (dist_extra_v[sl].astype(jnp.uint32) << d_code_l.astype(jnp.uint32))
-            t2b = jnp.where(mt, d_code_l + dist_extra_n[sl], 0)
+        tok_on = tvalid[sl] & huff
+        l_pack = table_lookup(l_pack_s[r], lsym[sl], C.NUM_LITLEN_SYMBOLS)
+        lsym_code = (l_pack & 0xFFFF).astype(jnp.uint32)
+        lsym_len = l_pack >> 16
+        t1v = lsym_code | (len_extra_v[sl].astype(jnp.uint32) << lsym_len.astype(jnp.uint32))
+        t1b = jnp.where(tok_on, lsym_len + len_extra_n[sl], 0)
+        mt = tok_on & is_match[sl]
+        d_pack = table_lookup(d_pack_s[r], dcode[sl], C.NUM_DIST_SYMBOLS)
+        d_code_v = (d_pack & 0xFFFF).astype(jnp.uint32)
+        d_code_l = d_pack >> 16
+        t2v = d_code_v | (dist_extra_v[sl].astype(jnp.uint32) << d_code_l.astype(jnp.uint32))
+        t2b = jnp.where(mt, d_code_l + dist_extra_n[sl], 0)
         tok_v = jnp.stack([t1v, t2v], axis=1).reshape(-1)
         tok_b = jnp.stack([t1b, t2b], axis=1).reshape(-1)
 

@@ -1,7 +1,7 @@
 """Position hashing and hash-group ranking.
 
 The reference builds zlib-style ``head``/``prev`` chains by inserting positions
-one at a time (chained_hash_table.rs:118-158).  The TPU formulation computes
+one at a time (chained_hash_table.rs:118-158).  The data-parallel formulation computes
 the same neighborhood structure wholesale: hash every position, then stable
 sort positions by hash.  Within the sorted order, the ``k`` entries preceding a
 position with the same hash are exactly the ``k`` most recent earlier positions

@@ -1,13 +1,13 @@
-"""Device-side DEFLATE decoder (the TPU inflate validator).
+"""Device-side DEFLATE decoder (the on-device inflate validator).
 
-The BASELINE north star ends with "a TPU-side inflate decoder validates
-roundtrip"; the reference itself ships no decoder (it leans on miniz_oxide,
+The BASELINE north star ends with an on-device inflate decoder that
+validates the roundtrip; the reference itself ships no decoder (it leans on miniz_oxide,
 test_utils.rs:23-72).  This module decodes arbitrary raw-DEFLATE streams with
 the DEVICE doing all decoding math; the host only sequences blocks (one
 jitted call per DEFLATE block, scalar state between calls).
 
-Huffman decoding is a bit-serial chain in the reference decoders; the TPU
-formulation decodes SPECULATIVELY AT EVERY BIT OFFSET of the block window:
+Huffman decoding is a bit-serial chain in the reference decoders; the
+data-parallel formulation decodes SPECULATIVELY AT EVERY BIT OFFSET of the block window:
 
 1. per bit b, accumulate the MSB-first code value level by level (15 shifted
    rows) against the block's canonical (first_code, count, offset) tables —

@@ -7,11 +7,12 @@ concatenated similar-but-not-identical files (license texts, JSON configs,
 Python sources) the tie group at every position is full of short-lived near
 candidates, so chosen distances vary position to position and long matches
 are emitted as ~probe-window fragments — measured token histograms showed a
-4x pile-up in the 17-32-byte bucket vs zlib-6's parse on the json corpus
-(scripts/parse_diff.py), costing up to 36% in size.
+4x pile-up in the 17-32-byte bucket vs zlib-6's parse on the json corpus,
+costing up to 36% in size.
 
-The recovery exploits locality of repeat structure instead of per-candidate
-measurement (TPU gathers are scalar-bound, ~10 ns/element — off the table):
+The recovery exploits locality of repeat structure instead of measuring
+every candidate of every position (per-candidate gathers were scalar-bound
+on the encoder's first target device; not yet measured on the GPU):
 
 1. HARVEST: every position whose claim hit the probe cap contributes its
    chosen distance as a candidate (the true length there is unknown).
@@ -22,9 +23,8 @@ measurement (TPU gathers are scalar-bound, ~10 ns/element — off the table):
 3. MEASURE: for each (segment, dominant distance), the run structure of
    ``buf[x] == buf[x-d]`` over the segment — entirely at WORD granularity.
 
-The round-4 restructure (this file) keeps every per-(segment,dominant)
-array in word space: the per-byte work of earlier rounds ([S, M, L] byte
-arrays — measured 1.3 ms/chunk before any scan even ran) is replaced by
+This file keeps every per-(segment,dominant) array in word space: the
+per-byte work of a byte-granular form ([S, M, L] byte arrays) is replaced by
 
   * phase-decomposed uint32 compares: ``P[x] == P[x-d]`` for the packed
     word array P (P[x] covers bytes x..x+3), evaluated on the 4-aligned
@@ -118,9 +118,8 @@ def global_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     """Per-position lengths at the chunk's unioned dominant distances.
 
     The gather-free sibling of :func:`local_dominant_lengths`: instead of
-    S x M per-segment window slices (a 1000-row gather — measured to be the
-    pass's wall on TPU regardless of element count), every unioned distance
-    is measured over the WHOLE chunk.  The per-distance shifted operand is
+    S x M per-segment window slices (a ~1000-row gather), every unioned
+    distance is measured over the WHOLE chunk.  The per-distance shifted operand is
     ONE contiguous dynamic slice, collected into a [D, NW] buffer by a
     fori_loop of contiguous copies; compares, the packed-prefix run scan,
     and the cross-distance winner reduction then run as plain batched
@@ -132,8 +131,6 @@ def global_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     assert N % 4 == 0
     NQ4 = N // 4
     NW = NQ4 + (MAX_MATCH + 6) // 4 + 1  # overhang past the chunk end
-    idx = jnp.arange(N, dtype=jnp.int32)
-    limit = jnp.clip(n_total - idx, 0, MAX_MATCH)
 
     dlist = union_dominants(d_cand, num_seg, num_dom, D,
                             harvest_stride=harvest_stride, sel=sel, pair=pair)
@@ -178,26 +175,10 @@ def global_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     )
     xor_next = jnp.sum(jnp.where(onehot_n, x, jnp.uint32(0)), axis=0)
 
-    # ------------------------------------- O(N) byte expansion (exact)
-    def up4(a):
-        return jnp.broadcast_to(a[:, None], (NQ4, 4)).reshape(N)
-
-    len0 = up4(run_w[:NQ4])
-    d0 = up4(dist_w[:NQ4])
-    rn = up4(run_w[1 : NQ4 + 1])
-    dn = up4(dist_w[1 : NQ4 + 1])
-    xq = up4(xor_next[:NQ4])
-    o = idx & 3
-    sh8 = (o.astype(jnp.uint32) << 3)
-    tail = jnp.where(o > 0, xq >> sh8, jnp.uint32(1))
-    eo = jnp.minimum(_matched_low_bytes(tail), 4 - o)
-    len_o = eo + jnp.where(eo == 4 - o, jnp.maximum(rn, 0), 0)
-    b_len = jnp.where(o == 0, jnp.maximum(len0, 0), len_o)
-    b_dist = jnp.where(o == 0, d0, dn)
-
-    b_len = jnp.minimum(b_len, limit)
-    ok = (b_len >= 3) & (b_dist > 0) & (idx - b_dist >= hstart) & (idx < n_total)
-    return jnp.where(ok, b_len, 0), jnp.where(ok, b_dist, 0)
+    return _finish_from_winner(
+        run_w[:NQ4], dist_w[:NQ4], run_w[1 : NQ4 + 1], dist_w[1 : NQ4 + 1],
+        xor_next[:NQ4], N, n_total, hstart,
+    )
 
 
 def _select_dominants(d_cand, S: int, M: int, harvest_stride: int = 1,
@@ -205,11 +186,9 @@ def _select_dominants(d_cand, S: int, M: int, harvest_stride: int = 1,
     """Per-segment top-M harvested distances: [S, M], 0 inert.
 
     Two selection policies (both mask dead slots to 0 and order live
-    dominants as a count-descending PREFIX of the row — the Mosaic
-    measurement kernel (lr_kernel.py) bounds its per-segment loop at the
-    live count, which is what makes sparse-harvest content (plain text)
-    pay almost nothing for the pass; ties prefer the larger distance, the
-    r4 flip, measured ratio-neutral-to-better):
+    dominants as a count-descending PREFIX of the row, so a measurement
+    loop may stop at the live count; ties prefer the larger distance,
+    measured ratio-neutral-to-better):
 
     ``sel="freq"`` (rounds 3-4): TOTAL frequency per distinct distance —
     an ascending value sort, run-sum over the sorted rows, then a packed
@@ -222,11 +201,9 @@ def _select_dominants(d_cand, S: int, M: int, harvest_stride: int = 1,
     A distance split across several runs is ranked by its longest one;
     top-M rows are then deduped (an [S, M, M] compare — M is small) and
     re-compacted with a tiny [S, M] sort to restore the live-prefix
-    invariant.  Halves the selection's full-width sort cost — the LR
-    pass's largest XLA-side stage (scripts/probes/lr_overhead.py:
-    isolated selection ~0.30 ms/chunk of the pass's ~0.46 at B=16).
-    Ratio: measured equal-or-better on every in-image corpus at the
-    round-5 budget (docs/perf_notes.md round 5).
+    invariant.  Halves the selection's full-width sort work.  Ratio:
+    measured equal-or-better on every in-image corpus at the round-5
+    budget.
     """
     if pair:
         # PAIR-COLLAPSE halving (round 5): where a stride-2 subsample DROPS
@@ -236,8 +213,7 @@ def _select_dominants(d_cand, S: int, M: int, harvest_stride: int = 1,
         # position of the pair has one: c = even if even != 0 else odd.
         # Run lengths halve like stride's, singletons survive.  Measured
         # contract-equivalent to the full-width harvest on all nine
-        # corpora at half the selection sort's elements (the LR pass's
-        # largest XLA-side cost — docs/perf_notes.md round 5).
+        # corpora at half the selection sort's elements.
         assert harvest_stride == 1, "pair collapse replaces the stride"
         dc0 = d_cand.reshape(S, -1)
         even, odd = dc0[:, 0::2], dc0[:, 1::2]
@@ -276,8 +252,7 @@ def _select_dominants(d_cand, S: int, M: int, harvest_stride: int = 1,
     if sel == "run":
         # Dedup: a distance with several runs may occupy several top-M
         # slots; keep its highest-ranked slot only, then re-compact so the
-        # live dominants stay a prefix (the kernel's density-gate
-        # precondition).
+        # live dominants stay a prefix.
         v = top & 0xFFFF
         dup = jnp.tril(v[:, :, None] == v[:, None, :], k=-1).any(axis=2)
         top = jnp.where(dup, 0, top)
@@ -320,53 +295,6 @@ def _finish_from_winner(run_q, dist_q, run_n, dist_n, xor_n, N: int,
     return jnp.where(ok, b_len, 0), jnp.where(ok, b_dist, 0)
 
 
-def local_dominant_lengths_tpu(buf, N: int, n_total, hstart, d_cand, *,
-                               num_dom: int = 8, num_seg: int = 16,
-                               harvest_stride: int = 1, sel: str = "freq",
-                               pair: bool = False, interpret: bool = False):
-    """Kernel-backed local dominant pass (bit-identical to the XLA form).
-
-    Dominant selection and the byte expansion stay in XLA; the S x M
-    shifted-window measurement — the part XLA cannot run below its ~2 us/op
-    device floor — runs as ONE Mosaic program (ops/lr_kernel.py).
-    """
-    from .lr_kernel import LANES, lr_measure_single, seg_rows_for
-
-    S, M = num_seg, num_dom
-    assert N % (4 * S) == 0 and (N // (4 * S)) % LANES == 0
-    L_words = N // (4 * S)
-    SR = seg_rows_for(L_words)
-    doms, _ = _select_dominants(d_cand, S, M, harvest_stride, sel=sel,
-                                pair=pair)
-
-    # Word tables as lane rows (see lr_kernel docstring).
-    slack = 4 * (SR + 1) * LANES + 64
-    d8 = jnp.concatenate(
-        [jnp.zeros(WINDOW_SIZE, buf.dtype), buf, jnp.zeros(slack, buf.dtype)]
-    ).astype(jnp.uint32)
-    P = d8[:-3] | (d8[1:-2] << 8) | (d8[2:-1] << 16) | (d8[3:] << 24)
-    NPw = (P.shape[0] - 4) // 4
-    NPr = -(-NPw // LANES) + 1
-    phases = jnp.stack([P[r : r + 4 * NPw : 4] for r in range(4)])
-    phases_rows = jnp.concatenate(
-        [phases, jnp.zeros((4, NPr * LANES - NPw), jnp.uint32)], axis=1
-    ).reshape(4 * NPr, LANES)
-    BR = N // (4 * LANES) + SR
-    base_flat = P[WINDOW_SIZE : WINDOW_SIZE + 4 * BR * LANES : 4]
-    base_rows = base_flat.reshape(BR, LANES)
-
-    run_w, dist_w, xor_n = lr_measure_single(
-        doms, phases_rows, base_rows, N, interpret=interpret
-    )  # [S, SR*128] segment windows
-    run_q = run_w[:, :L_words].reshape(N // 4)
-    dist_q = dist_w[:, :L_words].reshape(N // 4)
-    run_n = run_w[:, 1 : L_words + 1].reshape(N // 4)
-    dist_n = dist_w[:, 1 : L_words + 1].reshape(N // 4)
-    xn = xor_n[:, :L_words].reshape(N // 4)
-    return _finish_from_winner(run_q, dist_q, run_n, dist_n, xn, N,
-                               n_total, hstart)
-
-
 def local_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
                            num_dom: int = 8, num_seg: int = 16,
                            harvest_stride: int = 1, sel: str = "freq",
@@ -396,8 +324,6 @@ def local_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     L = N // S
     # Overhang: runs extend past the segment end by up to MAX_MATCH.
     LW = (L + MAX_MATCH + 6) // 4 + 1
-    idx = jnp.arange(N, dtype=jnp.int32)
-    limit = jnp.clip(n_total - idx, 0, MAX_MATCH)
 
     # ---------------- per-segment top-M candidate distances by frequency
     doms, _ = _select_dominants(d_cand, S, M, harvest_stride, sel=sel,
@@ -422,13 +348,7 @@ def local_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     # Vmapped per-(segment, dominant) shifted slices.  The shifted word row
     # for (s, d) is phases[(W+s*L-d) & 3] at word offset (W+s*L-d) >> 2 —
     # P[x] covers bytes x..x+3, so this is the byte-granular compare
-    # evaluated on the segment's 4-aligned grid.  NOTE: this XLA form is
-    # the CPU/reference path only; on TPU every formulation of these S*M
-    # dynamic-offset fetches hits a ~2 us/op device floor (vmapped rows,
-    # fori collect, and a statically-unrolled variant all measured +2.3
-    # ms/chunk — scripts/probes/lr_substage.py), which is why the
-    # measurement runs as a Mosaic kernel there (ops/lr_kernel.py, used by
-    # local_dominant_lengths_tpu; bit-identical, tested).
+    # evaluated on the segment's 4-aligned grid.
     def seg_rows(s, ds):
         base = jax.lax.dynamic_slice(base_w, [s * (L // 4)], [LW])
 
@@ -468,26 +388,8 @@ def local_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
     # module docstring).  Only claims longer than the upstream probe cap
     # ever take effect, so the o>0 tail-byte choice cannot cost ratio.
     LQ = L // 4
-
-    def up4(a):
-        """[S, LQ] word values -> [N] per-byte (broadcast, no gather)."""
-        return jnp.broadcast_to(a[:, :, None], (S, LQ, 4)).reshape(N)
-
-    len0 = up4(run0_win[:, :LQ])
-    d0 = up4(dist_win[:, :LQ])
-    rn = up4(run0_win[:, 1 : LQ + 1])
-    dn = up4(dist_win[:, 1 : LQ + 1])
-    xq = up4(xor_next_sel[:, :LQ])
-    o = idx & 3
-    sh8 = (o.astype(jnp.uint32) << 3)
-    tail = jnp.where(o > 0, xq >> sh8, jnp.uint32(1))
-    eo = jnp.minimum(_matched_low_bytes(tail), 4 - o)
-    len_o = eo + jnp.where(eo == 4 - o, jnp.maximum(rn, 0), 0)
-    b_len = jnp.where(o == 0, jnp.maximum(len0, 0), len_o)
-    b_dist = jnp.where(o == 0, d0, dn)
-
-    # Start-time validity: source inside history, start inside payload,
-    # real distance; clip by each position's own limit.
-    b_len = jnp.minimum(b_len, limit)
-    ok = (b_len >= 3) & (b_dist > 0) & (idx - b_dist >= hstart) & (idx < n_total)
-    return jnp.where(ok, b_len, 0), jnp.where(ok, b_dist, 0)
+    return _finish_from_winner(
+        run0_win[:, :LQ].reshape(-1), dist_win[:, :LQ].reshape(-1),
+        run0_win[:, 1 : LQ + 1].reshape(-1), dist_win[:, 1 : LQ + 1].reshape(-1),
+        xor_next_sel[:, :LQ].reshape(-1), N, n_total, hstart,
+    )

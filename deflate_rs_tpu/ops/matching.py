@@ -1,15 +1,15 @@
 """Vectorized longest-match search, gather-free on the hot path.
 
 Replaces the reference's per-byte hash-chain walk (``longest_match``,
-matching.rs:87 — its hottest function).  TPU constraint that shapes this
-design (docs/perf_notes.md): XLA TPU gathers/scatters execute ~1 element per
-~10 ns (scalar-unit bound), so per-candidate gathers are unaffordable.  The
-hot path therefore uses only sorts, shifts, scans and elementwise ops:
+matching.rs:87 — its hottest function).  The design comes from the
+encoder's first target device, whose gathers and scatters ran on a scalar
+unit, so per-candidate gathers were unaffordable there; it has not yet been
+measured against a gather-based matcher on the GPU.  The hot path uses only sorts, shifts,
+scans and elementwise ops:
 
 1. **Payload sort**: positions are sorted by 3-byte hash with their probe
    words (the first 16 bytes, packed) carried as sort payloads — a
-   multi-operand ``lax.sort``, which TPUs run as a vectorized sorting
-   network.  After the sort, the k-th most recent same-hash candidate of a
+   multi-operand ``lax.sort``.  After the sort, the k-th most recent same-hash candidate of a
    position is simply the row k above it: the entire hash-chain neighborhood
    becomes *shifted slices*, no gathers.
 2. **Probe**: for k = 1..K, compare each row's probe words against the row
@@ -101,8 +101,6 @@ def chain_extend(best_len, best_dist, limit, N: int):
     ok = best_len >= 3
     d_prev = jnp.concatenate([jnp.zeros(1, best_dist.dtype) - 1, best_dist[:-1]])
     bad = ~ok | (best_dist != d_prev)
-    # lax.cummin lowers to XLA's cumulative reduce-window on TPU — measured
-    # ~30% faster than the associative_scan decomposition at this size.
     first_bad = jax.lax.cummin(jnp.where(bad, idx, N), axis=0, reverse=True)
     # First break strictly AFTER i; the last matched position still proves
     # its own 3 probe bytes, hence the +2.
@@ -118,7 +116,7 @@ def _probe_schedule(K: int, dense_frac: float = 0.875, growth: float = 0.04):
     depth several times the budget.  dense_frac was retuned 0.75 -> 0.875
     in round 5: at the same probe count it improved the high preset on
     EVERY in-image corpus (pg11 60102 -> 60066; worst z9 margin 0.9963 ->
-    0.9961; sweep table in docs/perf_notes.md) — mid-depth density beats
+    0.9961) — mid-depth density beats
     maximum reach on this corpus set."""
     ks, k = [], 1
     while len(ks) < K:
@@ -204,11 +202,8 @@ def find_matches_hash(buf, N: int, n_total, hstart, num_checks: int,
 
     # ------------------------------------------------ unsort + chain extend
     # Un-permute via a second sort keyed by position: spos is a permutation
-    # of iota, so sorting (spos, best) restores position order.  Measured ~2x
-    # faster than the honestly-hinted XLA scatter on TPU (0.359 vs 0.737
-    # ms/chunk, scripts/probes/unsort_microbench.py; a round-1 note claiming
-    # a 0.046 ms hinted scatter was reconciled in round 5 — that measurement
-    # set indices_are_sorted=True on a permutation, spec-UB).
+    # of iota, so sorting (spos, best) restores position order (chosen where
+    # it beat a scatter; not yet measured against one on the GPU).
     score_pos = jax.lax.sort([spos, best], num_keys=1, is_stable=False)[1]
     blen = jnp.minimum(score_pos >> 16, limit)
     bdist = jnp.where(score_pos > 0, WINDOW_SIZE + 1 - (score_pos & 0xFFFF), 0)
@@ -344,8 +339,7 @@ def find_matches(buf, N: int, n_total, hstart, num_checks: int,
     limit = jnp.clip(n_total - idx, 0, MAX_MATCH)
     valid = (idx >= hstart) & (idx <= n_total - 3)
 
-    # Key count: sort cost on TPU is driven by the number of SORT KEYS, not
-    # total operands (scripts/r3_probe.py) — nkey < 4 sorts a shorter exact
+    # Key count: nkey < 4 sorts a shorter exact
     # content prefix, leaving in-tie order by position (most recent last),
     # and the LCP chain below measures through payload words regardless.
     # Correctness is unaffected (the running-min LCP is a valid lower bound
@@ -364,10 +358,6 @@ def find_matches(buf, N: int, n_total, hstart, num_checks: int,
     ops = jax.lax.sort(keys + [idx] + pay, num_keys=NKEY, is_stable=True)
     skeys, spos, spay = list(ops[:NKEY]), ops[NKEY], list(ops[NKEY + 1 :])
 
-    # A fused Pallas kernel for this scan was built and measured in round 2
-    # (0.640 vs 0.567 ms/chunk for the XLA formulation: the per-step roll
-    # pair costs more than XLA's dynamic-slice shifts) and deleted — a
-    # falsified experiment does not ride along disabled.
     best = sa_scan_xla(skeys, spos, spay, hstart, n_total, num_checks,
                        probe_words, tail_jumps=tail_jumps)
 

@@ -3,7 +3,7 @@
 The reference derives code lengths with the in-place Moffat–Katajainen
 algorithm plus a Kraft-sum repair pass when the depth limit is exceeded
 (length_encode.rs:338-415, 290-327) — an inherently sequential pointer
-algorithm.  Package-merge is the TPU-friendly alternative: L-1 rounds of
+algorithm.  Package-merge is the data-parallel alternative: L-1 rounds of
 "pair adjacent + merge with leaves", all expressible as fixed-shape sorts.
 It is *exactly optimal* under the length limit, so the resulting bit cost is
 <= the reference's for every block (their repair pass is only heuristic).
@@ -25,45 +25,9 @@ import jax.numpy as jnp
 _BIG = 1 << 29  # value sentinel for padding; sums are clamped below it
 
 
-def _pm_rows_impl(freqs, max_len: int):
-    import os
-
-    if jax.default_backend() == "tpu" and os.environ.get(
-        "DEFLATE_TPU_PM_KERNEL", "1"
-    ) != "0":
-        # One Mosaic program for all rows and levels (pm_kernel.py) instead
-        # of the dispatch-bound XLA level chain.  Env toggle for A/B timing.
-        from .pm_kernel import package_merge_rows_tpu
-
-        return package_merge_rows_tpu(freqs, max_len)
-    return jax.vmap(functools.partial(package_merge_lengths, max_len=max_len))(freqs)
-
-
-@functools.lru_cache(maxsize=None)
-def _pm_rows_fn(max_len: int):
-    @jax.custom_batching.custom_vmap
-    def pm_rows(freqs):
-        return _pm_rows_impl(freqs, max_len)
-
-    @pm_rows.def_vmap
-    def pm_rows_vmap(axis_size, in_batched, freqs):
-        (fb,) = in_batched
-        if not fb:
-            freqs = jnp.broadcast_to(freqs, (axis_size,) + freqs.shape)
-        B, R, A = freqs.shape
-        out = _pm_rows_impl(freqs.reshape(B * R, A), max_len)
-        return out.reshape(B, R, A), True
-
-    return pm_rows
-
-
 def package_merge_rows(freqs, max_len: int):
-    """Batched :func:`package_merge_lengths` over ``freqs: int32[R, A]``.
-
-    vmap-aware: an outer batch dimension is collapsed into the row axis, so
-    the TPU kernel sees one flat row batch per device program.
-    """
-    return _pm_rows_fn(max_len)(freqs)
+    """:func:`package_merge_lengths` over each row of ``freqs: int32[R, A]``."""
+    return jax.vmap(functools.partial(package_merge_lengths, max_len=max_len))(freqs)
 
 
 def package_merge_lengths(freqs, max_len: int):
@@ -94,8 +58,7 @@ def package_merge_lengths(freqs, max_len: int):
     # Each level's merged list is kept as ONE packed array: value*2 | kind,
     # kind bit 0 = leaf, 1 = package.  Value order with leaves-before-
     # packages tie-break is then plain integer order, so every level is a
-    # single-operand sort (the per-level cost is dispatch-bound; payload-free
-    # sorts are the cheapest form).  Values stay < 2*_BIG < 2^30, safe in
+    # single-operand sort (payload-free sorts are the cheapest form).  Values stay < 2*_BIG < 2^30, safe in
     # int32.
     leaf_packed = leaf_vals * 2
     pad_packed = jnp.full(A, _BIG * 2 + 1, dtype=jnp.int32)

@@ -1,8 +1,8 @@
 """Parse resolution: greedy/lazy selection + parallel token extraction.
 
 The reference resolves greedy vs lazy with a sequential per-byte state machine
-(``process_chunk_lazy``, lz77.rs:305-486).  The key observation for the TPU
-reformulation: both policies are *local* decisions once every position's best
+(``process_chunk_lazy``, lz77.rs:305-486).  The key observation for the
+data-parallel reformulation: both policies are *local* decisions once every position's best
 match is known —
 
 * greedy: take the match at i iff one exists;
@@ -58,3 +58,16 @@ def reachable(nxt, start: int):
         reach = reach | stepped
         hop = hop[hop]
     return reach
+
+
+def token_starts(steps, n):
+    """Token-start mask of a chunk: the orbit of position 0 under ``steps``.
+
+    Args:
+      steps: int32[E] jump steps from :func:`build_jumps`.
+      n: dynamic payload length; positions >= n are never token starts.
+    """
+    E = steps.shape[0]
+    nxt = jnp.minimum(jnp.arange(E, dtype=jnp.int32) + steps, E)
+    reach = reachable(jnp.concatenate([nxt, jnp.full(1, E, jnp.int32)]), 0)
+    return reach[:E] & (jnp.arange(E) < n)

@@ -1,8 +1,8 @@
 """Arithmetic length/distance code mapping (gather-free).
 
 The reference maps lengths/distances to codes via lookup tables
-(LENGTH_CODE / DISTANCE_CODES, huffman_table.rs:50-126).  Table gathers are
-scalar-bound on TPU, but both mappings are pure bit arithmetic on the value:
+(LENGTH_CODE / DISTANCE_CODES, huffman_table.rs:50-126).  Both mappings are
+pure bit arithmetic on the value, so no table gather is needed:
 DEFLATE code ranges are power-of-two buckets, so the code index is a function
 of the value's bit length, recovered exactly from the float32 exponent
 (values < 2**24 are exactly representable).
@@ -59,16 +59,18 @@ def histogram_onehot(values, valid, num_bins: int):
 
 
 def table_lookup(table, idx, num: int):
-    """Small-table lookup as a one-hot MXU matmul.
+    """Small-table lookup as a one-hot matmul.
 
-    ~7x faster than an XLA gather on TPU (gathers are scalar-bound).  Exact
-    for table values < 2**24 (float32 integers).  ``table`` may be traced
+    Chosen where it beat a gather; on the GPU a plain gather may serve
+    better (not yet measured).  Exact for table values < 2**24
+    (float32 integers).  ``table`` may be traced
     (per-block Huffman codes) or a host constant.
 
     Precision is pinned to HIGHEST: the exactness contract requires full
     float32 multiply-accumulate.  A backend whose DEFAULT lowers f32 dots
-    to single-pass bf16 would silently round >8-significand-bit table
-    values (packed Huffman entries reach ~2**21) into corrupt bitstreams.
+    to bf16 or TF32 (as the GPU may) would silently round table values
+    wider than the format's significand (packed Huffman entries reach
+    ~2**21) into corrupt bitstreams.
     """
     oh = (idx[:, None] == jnp.arange(num)[None, :]).astype(jnp.float32)
     res = jnp.dot(

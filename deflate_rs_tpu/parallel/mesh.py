@@ -3,13 +3,13 @@
 The reference is single-threaded (SURVEY.md §2: no parallel components — the
 serial bitstream dependence is exactly what this build breaks).  Here the unit
 of data parallelism is the independent 64 KiB chunk: chunks shard over the
-``data`` mesh axis, ride ICI for the size all-gather collective, and are
+``data`` mesh axis, meet in one all-gather of their compressed sizes, and are
 gathered in stream order on the host.
 
 Multi-host: ``init_distributed`` wires ``jax.distributed.initialize`` so the
-mesh spans every process's devices (collectives ride ICI within a host/pod
-slice and DCN across hosts).  Validated without real multi-host hardware by
-``scripts/multihost_dryrun.py``, which launches N coordinated CPU processes.
+mesh spans every process's devices.  Validated without real multi-host
+hardware by ``scripts/multihost_dryrun.py``, which launches N coordinated CPU
+processes.
 """
 
 from __future__ import annotations
@@ -30,10 +30,10 @@ def init_distributed(
 ) -> None:
     """Join (or start) a multi-process JAX runtime.
 
-    Thin wrapper over ``jax.distributed.initialize``: arguments default to
-    the standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    environment (also auto-detected on Cloud TPU pods, where no arguments are
-    needed).  Must run before any other JAX call in the process.  After it
+    Thin wrapper over ``jax.distributed.initialize``: arguments left as
+    None fall back to JAX's own defaults, and a machine that tells JAX of no
+    cluster needs all three of coordinator_address, num_processes and
+    process_id.  Must run before any other JAX call in the process.  After it
     returns, ``jax.devices()`` lists the GLOBAL device set and ``make_mesh``
     builds a process-spanning mesh.
     """
@@ -57,8 +57,8 @@ def make_mesh(num_devices: int | None = None) -> Mesh:
     """A 1-D ``data`` mesh over the global device set.
 
     In a multi-process runtime the devices span every process; collectives
-    over the mesh then cross hosts transparently (ICI within a slice, DCN
-    between hosts).
+    over the mesh then cross hosts transparently.  The mesh is 1-D, so it
+    needs no knowledge of the interconnect's topology.
     """
     devices = jax.devices()
     if num_devices is not None:

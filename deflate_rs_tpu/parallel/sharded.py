@@ -2,7 +2,7 @@
 
 Pipeline (one jitted, shard_mapped step):
   1. each device vmap-encodes its shard of chunks (pure local compute);
-  2. per-chunk compressed byte counts are all-gathered (ICI collective) and
+  2. per-chunk compressed byte counts are all-gathered (a collective) and
      an exclusive prefix sum yields every chunk's byte offset in the final
      byte-aligned stream;
   3. outputs stay SHARDED by chunk — each device holds only its own chunks'
@@ -127,13 +127,11 @@ def make_sharded_encoder(mesh, options: CompressionOptions, emit_size: int,
         mesh=mesh,
         in_specs=(spec, spec, spec, spec),
         out_specs=out_specs,
-        # The encode pipeline contains pallas_call kernels (parse_scan,
-        # pm_kernel) whose output avals carry no varying-mesh-axes (vma)
-        # annotation; with the default check_vma=True, shard_map rejects
-        # them on the TPU backend (caught by scripts/sharded_overhead.py on
-        # a real chip — the CPU mesh tests never see it because the kernels
-        # are TPU-gated).  Every output here is per-chunk data varying over
-        # the data axis, which is exactly what out_specs declares.
+        # all_gather's result is the same on every device, but shard_map's
+        # check cannot infer that and rejects out_specs P() for
+        # "all_nbytes" (JAX 0.9 has no public invariant all-gather).  Every
+        # other output is per-chunk data varying over the data axis, which
+        # is exactly what out_specs declares.
         check_vma=False,
     )
 

@@ -4,7 +4,8 @@ Builds the shared library on first use (g++ is in the image; pybind11 is
 not, so the ABI is plain C + ctypes per the build constraints).  Every entry
 point has a NumPy/stdlib fallback — the native path accelerates the host-side
 serial tail (ordered assembly, bit splicing, verification checksums), it is
-never required for correctness.
+never required for correctness.  A failed build or load warns once, and
+:func:`available` reports it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import warnings
 import zlib
 
 import numpy as np
@@ -61,8 +63,12 @@ def _load():
             lib.adler32.restype = ctypes.c_uint32
             lib.adler32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
             _lib = lib
-        except Exception:
+        except Exception as e:  # noqa: BLE001
             _lib = None
+            warnings.warn(
+                f"native host runtime unavailable ({type(e).__name__}: {e}); "
+                "using the NumPy/stdlib fallbacks", RuntimeWarning, stacklevel=2,
+            )
         return _lib
 
 

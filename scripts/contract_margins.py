@@ -4,7 +4,7 @@ VERDICT r4 item 5: the contract (default <= zlib-6, high <= zlib-9 AND
 zlib-6 on every corpus class) was only ever verified pass/fail at 128 KiB
 caps.  This script REPORTS the margins (ours / oracle) per corpus at
 128 KiB, 512 KiB and 1 MiB caps so headroom erosion is visible before a
-contract test flips.  Output is the table recorded in docs/perf_notes.md.
+contract test flips.
 
 Corpus classes: the 7 round-4 pins plus the round-5 additions (sqlite_db =
 /usr/share/proj/proj.db, tar_tree = tarfile of the numpy package tree —

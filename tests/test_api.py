@@ -45,29 +45,29 @@ def test_option_values_mirror_reference():
 
 
 def test_kernel_gates_resolve_into_options(monkeypatch):
-    """The DEFLATE_TPU_*_KERNEL env gates are read once at options
-    construction and distinguish the options (and their trace-cache
-    identity) — no os.environ reads inside encode_chunk (VERDICT r4
-    item 8)."""
-    base = CompressionOptions.default()
-    assert (base.lr_kernel, base.hist_kernel, base.field_kernel) == (
-        "on", "off", "on",
-    )  # shipped composite winners (docs/perf_notes.md round 4)
-    monkeypatch.setenv("DEFLATE_TPU_LR_KERNEL", "0")
-    monkeypatch.setenv("DEFLATE_TPU_HIST_KERNEL", "1")
-    monkeypatch.setenv("DEFLATE_TPU_FIELD_KERNEL", "0")
-    gated = CompressionOptions.default()
-    assert (gated.lr_kernel, gated.hist_kernel, gated.field_kernel) == (
-        "off", "on", "off",
-    )
-    assert gated != base
-    assert gated.cache_key() != base.cache_key()
-    assert hash(gated) != hash(base)  # lru_cache (trace cache) identity
-    # The encoder itself never consults the environment at trace time.
+    """No environment variable changes the options or their trace-cache
+    identity: every preset resolves the same with the old kernel gates and
+    the debug switches set, and the encoder never reads the environment."""
     import inspect
 
-    from deflate_rs_tpu.ops import chunk_encode
+    from deflate_rs_tpu import compression_options
+    from deflate_rs_tpu.ops import chunk_encode, package_merge
 
+    presets = ("default", "fast", "high", "turbo", "rle", "huffman_only")
+    base = {p: getattr(CompressionOptions, p)() for p in presets}
+    for name, value in (
+        ("DEFLATE_TPU_LR_KERNEL", "0"), ("DEFLATE_TPU_HIST_KERNEL", "1"),
+        ("DEFLATE_TPU_FIELD_KERNEL", "0"), ("DEFLATE_TPU_PM_KERNEL", "0"),
+        ("DEFLATE_TPU_DEBUG", "1"), ("DEFLATE_TPU_FETCH_SLICE", "0"),
+    ):
+        monkeypatch.setenv(name, value)
+    for p in presets:
+        opts = getattr(CompressionOptions, p)()
+        assert opts == base[p]
+        assert opts.cache_key() == base[p].cache_key()
+        assert hash(opts) == hash(base[p])  # lru_cache (trace cache) identity
+    for mod in (compression_options, package_merge):
+        assert "environ" not in inspect.getsource(mod)
     assert "environ" not in inspect.getsource(chunk_encode.encode_chunk)
 
 

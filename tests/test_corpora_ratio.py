@@ -5,8 +5,7 @@ and zlib-6 on every in-image corpus class (ELF code, concatenated docs, JSON
 configs, Python sources, text, structured binary).  The default preset must
 stay at-or-under zlib-6 on EVERY corpus — the round-3 throughput tiering
 (1.40x json allowance) is gone: the budgeted long-range pass
-(ops/longrange.py + ops/lr_kernel.py, M32/S32/x1/stride2) closes the
-cross-file corpora at ~1 ms/chunk of device cost (VERDICT r3 item 1).
+(ops/longrange.py) closes the cross-file corpora (VERDICT r3 item 1).
 """
 
 import glob
@@ -195,8 +194,7 @@ def test_fast_regression_ceiling(name):
 #   - high/py_source at >= 512 KiB is a KNOWN measured gap vs zlib-9
 #     (1.0007 of z9 at the round-5 config; z6 margin fine at 0.9958): LR
 #     knobs measured no-op, K-depth saturates (+6 B over at K=512 for 2x
-#     probe cost), schedule retuning recovered -36 B — the falsification
-#     table is in docs/perf_notes.md round 5.  Pinned RELATIVE as a
+#     probe cost), schedule retuning recovered -36 B.  Pinned RELATIVE as a
 #     regression ceiling, not claimed as contract-met.
 # ---------------------------------------------------------------------------
 

@@ -76,6 +76,26 @@ def test_corpus_compaction_paths():
     assert res.deflate == dt.deflate_bytes(mixed)
 
 
+def test_corpus_chunk_grain():
+    """chunk_size is checked against the options' real granularity: a size
+    the long-range segments cannot divide is refused up front, and a
+    non-power-of-two multiple of the grain encodes."""
+    import pytest
+
+    from deflate_rs_tpu.compression_options import CompressionOptions as CO
+    from deflate_rs_tpu.parallel.corpus import chunk_grain, compress_corpus
+
+    assert [chunk_grain(CO.default()), chunk_grain(CO.high()), chunk_grain(CO.fast())] == [
+        256, 128, 16,
+    ]
+    with open(os.path.join(DATA_DIR, "pg11.txt"), "rb") as f:
+        data = f.read()[:20_000]
+    with pytest.raises(ValueError, match="multiple of 256"):
+        compress_corpus(data, CO.default(), chunk_size=65536 + 16)
+    res = compress_corpus(data, CO.default(), batch_size=2, chunk_size=4096 + 256)
+    assert zlib.decompress(res.deflate, wbits=-15) == data
+
+
 def test_corpus_large_chunks():
     """256 KiB device chunks: valid stream, ratio no worse than 64 KiB."""
     from deflate_rs_tpu.parallel.corpus import compress_corpus

@@ -203,18 +203,20 @@ def test_reference_optimality_vector_7701():
 
 
 # ---------------------------------------------------------------------------
-# Pallas package-merge kernel (ops/pm_kernel.py): bit-identical to the XLA
-# path on the same rows.  Interpret mode on CPU; the compiled-Mosaic identity
-# is re-checked on hardware by scripts/tpu_validate.py.
+# Batched package-merge (package_merge_rows), alone and under an outer vmap
+# as the batched encoder calls it: every row must equal the single-row
+# package_merge_lengths.
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("max_len,A", [(15, 286), (7, 19), (15, 30)])
 def test_pm_kernel_matches_xla(max_len, A):
-    from deflate_rs_tpu.ops.pm_kernel import package_merge_rows_tpu
+    import jax
+
+    from deflate_rs_tpu.ops.package_merge import package_merge_rows
 
     rng = np.random.default_rng(max_len * 1000 + A)
-    R = 130  # crosses one lane-tile boundary
+    R = 130
     freqs = rng.integers(0, 1 << 20, (R, A)).astype(np.int32)
     freqs[rng.random((R, A)) < 0.5] = 0
     freqs[0] = 0  # empty alphabet row
@@ -228,7 +230,8 @@ def test_pm_kernel_matches_xla(max_len, A):
     want = np.stack([
         np.asarray(package_merge_lengths(jnp.asarray(f), max_len)) for f in freqs
     ])
-    got = np.asarray(
-        package_merge_rows_tpu(jnp.asarray(freqs), max_len, interpret=True)
-    )
-    np.testing.assert_array_equal(got, want)
+    rows = np.asarray(package_merge_rows(jnp.asarray(freqs), max_len))
+    np.testing.assert_array_equal(rows, want)
+    batched = jax.jit(jax.vmap(lambda f: package_merge_rows(f, max_len)))
+    got = np.asarray(batched(jnp.asarray(freqs.reshape(2, R // 2, A))))
+    np.testing.assert_array_equal(got.reshape(R, A), want)

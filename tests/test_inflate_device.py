@@ -1,7 +1,7 @@
-"""Device-side inflate (ops/inflate_device.py) — the TPU decode validator.
+"""Device-side inflate (ops/inflate_device.py) — the on-device decode validator.
 
 Exercised here on the CPU backend (same jitted code, per conftest); the
-compiled-on-chip run is scripts/tpu_validate.py --device-decode.  Two
+compiled run on a GPU is chip_smoke.py's decode phase.  Two
 directions, matching the reference's oracle discipline (test_utils.rs:23-72,
 inverted): decode OUR encoder's streams, and decode stdlib-zlib streams —
 an encoder-independent check of the decoder itself.

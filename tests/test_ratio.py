@@ -68,7 +68,7 @@ PG11_GOLDEN_CEILINGS = {
     "fast": 68562,
     # default: sa log-step tail + TOO_FAR=1024 (60429 -> 60236); round-4
     # budgeted long-range pass (-> 60140); nq=8 split seams cost +60 here
-    # and buy -0.4..5 KB on mixed/ELF corpora (scripts/probes/nq_sweep.py);
+    # and buy -0.4..5 KB on mixed/ELF corpora;
     # round-5 M=48 dominants (-> 60196).
     "default": 60196,
     # high: geometric probe tail + long-range local-dominant pass +

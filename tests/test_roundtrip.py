@@ -160,6 +160,27 @@ def test_own_inflate_agrees_with_zlib(pg11):
         assert inflate(out) == zlib.decompress(out, wbits=-15) == data
 
 
+@pytest.mark.parametrize("level", [0, 1, 9])
+def test_inflate_token_sink(pg11, level):
+    """inflate's token list replays to the decoded bytes (stored, fixed and
+    dynamic blocks from stdlib zlib)."""
+    data = pg11[:6000] + b"\x00" * 300 + b"ab"
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    stream = co.compress(data) + co.flush()
+    toks = []
+    assert inflate(stream, tokens=toks) == data
+    out = bytearray()
+    for t in toks:
+        if t[0] == "lit":
+            out.append(t[1])
+        else:
+            _, length, dist = t
+            for _ in range(length):
+                out.append(out[-dist])
+    assert bytes(out) == data
+    assert any(t[0] == "m" for t in toks) == (level > 0)
+
+
 def test_chunk_boundary_sizes():
     """Inputs straddling chunk/window boundaries (lz77.rs:993-1033 analogue)."""
     rng = np.random.default_rng(9)
